@@ -2,7 +2,7 @@
 """Production-shaped A/V serving: decode a .mpg program stream with
 EVERYTHING device-resident — video frames as fused RGBA and audio PCM
 as device-quantized S16 — so downstream device consumers (overlays,
-encoders, mixers) read straight from HBM and the serve loop never
+encoders, mixers) read straight from device memory and the serve loop never
 blocks on device-to-host transfers.
 
 Usage: python examples/av_serving.py [file.mpg]
@@ -66,4 +66,6 @@ def main():
 
 
 if __name__ == "__main__":
+    from mpeg_tpu.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     main()

@@ -1,6 +1,6 @@
-"""mpeg_tpu — TPU-native MPEG-1 Video / MP2 Audio / MPEG-PS framework.
+"""mpeg_tpu — GPU-native MPEG-1 Video / MP2 Audio / MPEG-PS framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of
+A ground-up JAX/XLA re-design of the capabilities of
 github.com/gen2brain/mpeg: serial bit work (demux, Huffman/VLC parse) runs
 on host and emits dense arrays; the hot transforms (IDCT, motion
 compensation, reconstruction, color conversion, MP2 synthesis filterbank)

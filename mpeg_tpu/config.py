@@ -18,7 +18,8 @@ from dataclasses import dataclass
 @dataclass
 class Config:
     # Compute backend for the per-frame decode paths:
-    #   "jax"   — device dispatch per picture/frame (TPU when available)
+    #   "jax"   — device dispatch per picture/frame (the default JAX
+    #             device)
     #   "numpy" — host scalar-exact oracle (the `noasm` analog)
     backend: str = "jax"
 

@@ -1,7 +1,7 @@
 """Many-streams-per-chip video decode through ONE global record chain.
 
-The serving shape for dense multi-tenant decode (BASELINE.json's
-64-stream north star): N independent streams decode in lockstep, each
+The serving shape for dense multi-tenant decode (many 1080p streams
+per card): N independent streams decode in lockstep, each
 round parsing `window` pictures per stream.  Instead of N per-stream
 window blobs — whose power-of-two record buckets must each cover the
 DENSEST window any stream might produce (at window=2 on 1080p GOP
@@ -49,8 +49,7 @@ from .batch import (
 @functools.lru_cache(maxsize=None)
 def make_global_scan_decoder(geom: FrameGeometry, n_streams: int,
                              window: int, kmg: int, keg: int,
-                             chunks: int, emit_rgba: bool = False,
-                             recon: str = "auto"):
+                             chunks: int, emit_rgba: bool = False):
     """(carry [S,total] x3, meta_esc bytes, main_rec bytes) -> (carry,
     displays [S, window, frame]).  Two executables like the single-
     stream window decoder (standalone scatter, then the scatter-free
@@ -61,7 +60,7 @@ def make_global_scan_decoder(geom: FrameGeometry, n_streams: int,
 
     gw = n_streams * window
     mb = geom.mb_size
-    step = make_scan_step(geom, emit_rgba, recon)
+    step = make_scan_step(geom, emit_rgba)
 
     @jax.jit
     def densify(meta_esc, main_part):
@@ -136,8 +135,7 @@ class MultiStreamVideoDecoder:
 
     def __init__(self, sources: List[bytes], window: int = 2,
                  chunks: int = None, pool_buckets: tuple = None,
-                 emit_rgba: bool = False, recon: str = "auto",
-                 prefetch: bool = False):
+                 emit_rgba: bool = False, prefetch: bool = False):
         from .. import native as native_mod
 
         if not native_mod.available():
@@ -149,7 +147,6 @@ class MultiStreamVideoDecoder:
         self.n = len(sources)
         self.window = window
         self.emit_rgba = emit_rgba
-        self._recon = recon
         self.parsers = []
         for data in sources:
             data = bytes(data)
@@ -307,7 +304,7 @@ class MultiStreamVideoDecoder:
         if self._decode is None or self._caps != caps:
             self._decode = make_global_scan_decoder(
                 self.geom, self.n, self.window, caps[0], caps[1],
-                self.chunks, emit_rgba=self.emit_rgba, recon=self._recon)
+                self.chunks, emit_rgba=self.emit_rgba)
             self._caps = caps
         if self._carry is None:
             self._carry = tuple(

@@ -3,13 +3,15 @@
 Independent MPEG streams are embarrassingly parallel: the stream axis
 shards over the mesh with `shard_map`, each device scanning its own
 sub-batch of picture plans; the only collective is a `psum` of decoded
-pixel/sample counts (a cheap liveness/throughput stat that rides ICI).
+pixel/sample counts (a cheap liveness/throughput stat).
 
-This is the multi-chip story of the framework (SURVEY §2c): DP over
-streams on ICI; the host demux/parse feeds per-device plan shards over
-DCN.  No cross-stream communication exists in the problem, so there is
-nothing for TP/PP to win — scale is breadth of streams and depth of
-windows.
+This is the multi-device story of the framework (SURVEY §2c): data
+parallelism over streams across the devices of one host (a plain 1-D
+mesh — the host's cards reach each other all to all), with the host
+demux/parse feeding per-device plan shards; multi-host feeds are
+parallel/multihost.py.  No cross-stream communication exists in the
+problem, so there is nothing for TP/PP to win — scale is breadth of
+streams and depth of windows.
 
 Transports mirror parallel/batch.py: the production path ships one
 window-pool blob per stream (`make_sharded_blob_decoder`), the dense
@@ -65,11 +67,9 @@ def make_sharded_blob_decoder(geom: FrameGeometry, mesh: Mesh, window: int,
 
     decode(carry, blobs) -> (carry', displays [S, T, total], decoded_px).
 
-    Compiles the FUSED unpack+scan in one executable — fine on CPU
-    meshes (tests/dryrun).  On real TPU pods with large pool buckets,
-    split the densify scatter into its own shard_map first (the fused
-    form hits the TPU compile-time pathology documented at
-    batch.densify_blob_jax; the single-chip decoder already splits).
+    Compiles the fused unpack+scan in one executable (the single-device
+    decoder splits the densify scatter into its own executable; see
+    batch.densify_split_jax).
     """
     step = make_scan_step(geom)
 

@@ -2,9 +2,9 @@
 
 The reference's high-level API runs its whole hot path in one language:
 starving decoders re-enter the demuxer through load callbacks with zero
-marshaling (/root/reference/mpeg.go:634-669).  These classes are the
-TPU-build equivalent for the MPEG class: demux + both ES parsers live in
-ONE C++ object (native.NativePipeline); Python work on the steady-state
+marshaling (/root/reference/mpeg.go:634-669).  These classes are this
+framework's equivalent for the MPEG class: demux + both ES parsers live
+in ONE C++ object (native.NativePipeline); Python work on the steady-state
 path is one reader chunk feed per ~128 KiB plus the per-picture/per-frame
 device dispatch — no per-packet routing, no byte marshaling between
 stream buffers.

@@ -83,3 +83,20 @@ def device_trace(log_dir: str):
         yield
     finally:
         jax.profiler.stop_trace()
+
+
+def card_name_and_power_limit() -> list:
+    """One "name, power.limit" line per NVIDIA card, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them
+    ([] where nvidia-smi is absent).  A card set below its maximum
+    power runs slower under load, so every device number is reported
+    beside this."""
+    import shutil
+    import subprocess
+
+    if shutil.which("nvidia-smi") is None:
+        return []
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60)
+    return [ln.strip() for ln in r.stdout.splitlines() if ln.strip()]

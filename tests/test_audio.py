@@ -218,8 +218,8 @@ def test_batch_audio_out_device(mp2_path):
     """out_device=True returns device-resident jax arrays (no d2h on
     the decode path) bit-identical to the host-returning paths for
     BOTH formats — the f32 normalization must go through the
-    exact-IEEE constant-divisor kernel, not the TPU's approximate
-    f32 divide."""
+    exact-IEEE constant-divisor kernel, never the backend's own f32
+    divide (whose rounding is the compiler's choice)."""
     import jax
     from mpeg_tpu.parallel import BatchAudioDecoder
 
@@ -235,7 +235,7 @@ def test_batch_audio_out_device(mp2_path):
 
 
 def test_batch_audio_prefetch_parity(mp2_path):
-    """prefetch=True (producer-thread parse, VERDICT r3 #8) returns the
+    """prefetch=True (producer-thread parse) returns the
     same PCM as inline parse, and close() poisons further decode."""
     import numpy as np
     from mpeg_tpu.parallel import BatchAudioDecoder

@@ -3,7 +3,7 @@
 The repo's media fixtures are all mono 44.1 kHz, so the 2-channel
 allocation loop, the joint-stereo bound (audio.py:355-369;
 /root/reference/audio.go:228-230, 291-351) and true L != R interleaving
-had no coverage (VERDICT r3 weak #2).  No encoder exists in this
+had no coverage.  No encoder exists in this
 environment, so the streams are synthesized bit-exactly by
 tools/gen_mp2.py (the mirror image of the frame parser) across a
 mode x samplerate x bitrate matrix; golden hashes are locked from the

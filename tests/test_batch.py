@@ -265,8 +265,8 @@ def test_parse_thread_pool_parity(mpeg1video_path):
     window blobs to sequential parsing.  This is the BENCH_PARSE_THREADS
     scaling path: parsers share nothing and the ctypes window call
     releases the GIL, so on multi-core hosts host parse scales
-    per-stream-per-core (this 1-core CI box can only prove correctness;
-    BASELINE.md documents the scaling expectation)."""
+    per-stream-per-core (this test proves correctness only; the scaling
+    itself is unmeasured)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from mpeg_tpu import native

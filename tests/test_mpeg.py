@@ -289,9 +289,8 @@ def test_native_pipeline_push_fed(mpg_path, monkeypatch):
     pipeline: zero per-packet Python on the steady state, output
     bit-identical to the seekable engine, with seek/rewind degraded
     exactly as the reference degrades non-seekable sources
-    (buffer.go:74-76; mpeg.go:137,515: Probe/Seek are seekable-only).
-    Closes VERDICT r3 missing #1 (mpeg.py no longer gates the pipeline
-    on seekable())."""
+    (buffer.go:74-76; mpeg.go:137,515: Probe/Seek are seekable-only);
+    mpeg.py does not gate the pipeline on seekable()."""
     from mpeg_tpu import native
 
     if not native.available():

@@ -101,7 +101,7 @@ def test_long_stream_native_pipeline_and_clip(long_mpg):
     assert len(frames) >= (TARGET_SECONDS - 47.0) * 30
     assert np.asarray(frames[0])[:cdec.geom.frame_size].any()
     # O(window) scan contract: the byte-rate-seeded jump reads the scan
-    # window around t=45 s, not the 45 s prefix (VERDICT r4 weak #5).
+    # window around t=45 s, not the 45 s prefix.
     assert cdec._seek_scan_bytes < len(data) // 4, \
         (cdec._seek_scan_bytes, len(data))
 

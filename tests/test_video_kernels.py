@@ -135,3 +135,51 @@ def test_residual_add_and_intra():
     assert (y[8:16, 16:32] == fy[8:16, 16:32]).all()
     # untouched MB keeps current content
     assert (y[16:, 32:48] == cy[16:, 32:48]).all()
+
+
+def random_plan(geom, rng, ptype):
+    """Adversarial random plan: mixed MC modes, out-of-range junk MVs,
+    sparse/full/DC IDCT classes, intra/predicted mixes."""
+    from mpeg_tpu.video import _PicturePlan
+    mb = geom.mb_size
+    p = _PicturePlan(mb)
+    p.coeffs[:] = rng.integers(-2047 * 32, 2047 * 32, (mb, 6, 64))
+    p.nblocks[:] = rng.integers(0, 65, (mb, 6))
+    if ptype == 1:
+        p.intra_blk[:] = rng.integers(0, 2, (mb, 6))
+    p.src_sel[:] = rng.integers(0, 3, mb)
+    p.mv_h[:] = rng.integers(-40, 41, mb)
+    p.mv_v[:] = rng.integers(-40, 41, mb)
+    # a few junk-stream MVs far outside the frame (CLIP-mode parity)
+    junk = rng.integers(0, mb, max(2, mb // 16))
+    p.mv_h[junk] = rng.integers(-3000, 3000, junk.size)
+    p.mv_v[junk] = rng.integers(-3000, 3000, junk.size)
+    return p
+
+
+def reconstruct_chain_parity(sizes, trials=3, seed=11):
+    """The jitted device reconstruct must match the numpy oracle
+    byte-for-byte over a chain of adversarial plans (junk MVs, the full
+    copy / avgH / avgV / bilinear rounding family), each output feeding
+    the next picture's references."""
+    rng = np.random.default_rng(seed)
+    for size in sizes:
+        geom = vr.FrameGeometry.for_size(*size)
+        recon = vr.make_reconstruct_jax(geom)
+        cur, fwd, bwd = (rng.integers(0, 256, geom.total_size)
+                         .astype(np.uint8) for _ in range(3))
+        for trial in range(trials):
+            p = random_plan(geom, rng, ptype=1 + (trial % 2))
+            args = (cur, fwd, bwd, p.coeffs, p.nblocks, p.intra_blk,
+                    p.src_sel, p.mv_h, p.mv_v)
+            want = vr.reconstruct_picture(*args, geom, np)
+            got = np.asarray(recon(*args))
+            assert np.array_equal(got, want), \
+                f"{size} trial {trial}: {np.flatnonzero(got != want)[:8]}"
+            cur, fwd, bwd = got, bwd, cur
+
+
+def test_reconstruct_adversarial_plans_match_oracle():
+    # 80x48: one MB row group; 272x64: mb_width 17 (odd, not a power
+    # of two).
+    reconstruct_chain_parity([(80, 48), (272, 64)])

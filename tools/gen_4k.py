@@ -7,7 +7,6 @@ a spot-run geometry check (the cold 4K compile is minutes), skipped
 when the fixture is absent."""
 
 import os
-import struct
 import sys
 
 import numpy as np
@@ -37,21 +36,9 @@ def main():
         vw.write(f)
     vw.release()
 
-    data = open(avi, "rb").read()
-    out = bytearray()
-
-    def walk(pos, end):
-        while pos + 8 <= end:
-            fid = data[pos:pos + 4]
-            size = struct.unpack("<I", data[pos + 4:pos + 8])[0]
-            if fid in (b"RIFF", b"LIST"):
-                walk(pos + 12, pos + 8 + size)
-            elif fid.endswith(b"dc"):
-                out.extend(data[pos + 8:pos + 8 + size])
-            pos += 8 + size + (size & 1)
-
-    walk(12, len(data))
-    open(OUT, "wb").write(bytes(out))
+    from gen_1080 import avi_video_es
+    out = avi_video_es(open(avi, "rb").read())
+    open(OUT, "wb").write(out)
     os.remove(avi)
     print(f"wrote {OUT} ({len(out)} bytes, {n} frames)")
 
